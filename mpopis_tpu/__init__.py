@@ -1,5 +1,5 @@
-"""mpopis_tpu — a TPU-native Model Predictive Optimized Path Integral
-(MPPI/MPOPI) control engine built on JAX/XLA/Pallas.
+"""mpopis_tpu — a Model Predictive Optimized Path Integral (MPPI/MPOPI)
+control engine built on JAX/XLA/Pallas.
 
 Capability parity target: sisl/MPOPIS (Julia). Architecture: pure-functional
 environments over explicit state values, policies compiled as single

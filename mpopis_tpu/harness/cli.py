@@ -81,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     mj.add_argument("--no-native", action="store_true", help="use the Python fallback engine")
     mj.add_argument(
         "--on-device", action="store_true",
-        help="run the dynamics on the TPU (pure-JAX; all 11 tasks — "
+        help="run the dynamics on the accelerator (pure-JAX; all 11 tasks — "
         "contact-free, the HalfCheetah/Hopper/Walker2d planar contact "
         "pipeline, and the Ant/Pusher/Humanoid/HumanoidStandup 3D "
         "spatial-contact pipeline)",
@@ -99,6 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     import jax
+
+    from mpopis_tpu.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     if args.f64:
         jax.config.update("jax_enable_x64", True)

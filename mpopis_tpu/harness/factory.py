@@ -30,7 +30,6 @@ def get_policy(
     cma_elite_threshold: float = 0.8,
     nes_step_factor: float = 0.01,
     sample_sharding=None,
-    use_fused_rollout: bool = True,
 ) -> Policy:
     cfg = PolicyConfig(
         kind=str(policy_type),
@@ -46,6 +45,5 @@ def get_policy(
         cma_elite_threshold=cma_elite_threshold,
         nes_step_factor=nes_step_factor,
         log=pol_log,
-        use_fused_rollout=use_fused_rollout,
     )
     return make_policy(env, cfg, u0=u0, cov_mat=cov_mat, sample_sharding=sample_sharding)

@@ -13,7 +13,7 @@ the telemetry block; steps computed past the stopping point inside a
 chunk are simply discarded, which leaves results identical to the
 step-by-step loop up to compile-level rounding (the chunked scan is a
 differently-compiled program; tests/test_harness.py pins equality at
-rtol=1e-12 in f64 — in f32 on TPU, threshold-based bookkeeping such as
+rtol=1e-12 in f64 — in f32, threshold-based bookkeeping such as
 violation counts can in principle flip on boundary-grazing steps). Paths that need
 host interposition every step (gif rendering, trajectory plots, additive
 state noise, policy logging) fall back to steps_per_call=1.
@@ -222,62 +222,29 @@ def _simulate_simple(
     )
     _print(print_output, "Trial    #: %12s : %7s: %12s : %7s", "Reward", "Steps", "Reward/Step", "Ex Time")
 
-    def _build(use_fused: bool = True):
-        pol = get_policy(
-            policy_type, env, num_samples, horizon, lam, alpha, list(u0),
-            list(cov_mat), pol_log, ais_its, lambda_ais, ce_elite_threshold,
-            ce_sigma_est, cma_sigma, cma_elite_threshold,
-            use_fused_rollout=use_fused,
-        )
+    pol = get_policy(
+        policy_type, env, num_samples, horizon, lam, alpha, list(u0),
+        list(cov_mat), pol_log, ais_its, lambda_ais, ce_elite_threshold,
+        ce_sigma_est, cma_sigma, cma_elite_threshold,
+    )
 
-        @jax.jit
-        def fused_chunk(s, ps):
-            """`chunk` control steps in one device program; emits per-step
-            [reward, done, act...] rows so the host transfers once per
-            chunk. env.step_reward keeps totals gym-exact for
-            pre-step-reward envs."""
-            def body(carry, _):
-                s, ps = carry
-                act, ps2, _ = pol.step(s, ps)
-                s2, r = env.step_reward(s, act)
-                row = jnp.concatenate([
-                    jnp.stack([r.astype(env.dtype), s2.done.astype(env.dtype)]),
-                    act.astype(env.dtype),
-                ])
-                return (s2, ps2), row
-            (s2, ps2), rows = jax.lax.scan(body, (s, ps), None, length=chunk)
-            return s2, ps2, rows
-
-        return pol, fused_chunk
-
-    pol, fused_chunk = _build()
-    if getattr(env, "supports_fused_rollout", False):
-        # Warm-up compile probe: a Mosaic/TPU kernel-compile regression
-        # degrades to the generic vmap rollout instead of crashing the
-        # task (VERDICT r3 item 2). The compile happens here anyway —
-        # the probe only moves it before the trial loop.
-        try:
-            s_p = env.reset(jax.random.PRNGKey(0))
-            ps_p = pol.init_state(0)
-            if chunk > 1:
-                jax.block_until_ready(fused_chunk(s_p, ps_p)[0].x)
-            else:
-                jax.block_until_ready(pol.step(s_p, ps_p)[0])
-        except Exception as exc:  # noqa: BLE001 — filtered below
-            from mpopis_tpu.utils.fallback import is_kernel_compile_error
-
-            if not is_kernel_compile_error(exc):
-                raise
-            import warnings
-
-            warnings.warn(
-                "fused Pallas rollout failed to compile on this backend "
-                f"({type(exc).__name__}); falling back to the generic "
-                "vmap rollout — expect reduced throughput. Error: "
-                f"{str(exc).splitlines()[0][:200]}",
-                stacklevel=2,
-            )
-            pol, fused_chunk = _build(use_fused=False)
+    @jax.jit
+    def fused_chunk(s, ps):
+        """`chunk` control steps in one device program; emits per-step
+        [reward, done, act...] rows so the host transfers once per
+        chunk. env.step_reward keeps totals gym-exact for
+        pre-step-reward envs."""
+        def body(carry, _):
+            s, ps = carry
+            act, ps2, _ = pol.step(s, ps)
+            s2, r = env.step_reward(s, act)
+            row = jnp.concatenate([
+                jnp.stack([r.astype(env.dtype), s2.done.astype(env.dtype)]),
+                act.astype(env.dtype),
+            ])
+            return (s2, ps2), row
+        (s2, ps2), rows = jax.lax.scan(body, (s, ps), None, length=chunk)
+        return s2, ps2, rows
 
     frames = [] if save_gif else None
 
@@ -414,10 +381,10 @@ ON_DEVICE_MUJOCO_TASKS = (
 
 def simulate_mujoco_on_device(task: str, **kwargs):
     """MuJoCo task with ON-DEVICE dynamics (no host engine): the K×T
-    rollout fan-out runs on the TPU like the car models. Available for the
-    contact-free tasks with closed-form dynamics, the
-    HalfCheetah/Hopper/Walker2d contact pipeline (models/planar_contact.py,
-    fused Pallas rollouts on TPU) AND the 3D spatial-contact family
+    rollout fan-out runs on the accelerator like the car models. Available
+    for the contact-free tasks with closed-form dynamics, the
+    HalfCheetah/Hopper/Walker2d contact pipeline (models/planar_contact.py)
+    AND the 3D spatial-contact family
     (models/spatial_contact.py — Ant, Humanoid, HumanoidStandup,
     Pusher): all 11 reference envpool tasks
     (src/envs/envpool_env.jl:35-61). Contact-free tasks match mj_step to

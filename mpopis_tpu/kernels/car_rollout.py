@@ -1,24 +1,28 @@
-"""Fused Pallas TPU kernel for car-racing trajectory rollouts (1..N cars).
+"""Fused car-racing rollout kernel (1..N cars): Pallas on the Triton route.
 
-One kernel evaluates a full batch of candidate control sequences: the
+One kernel evaluates a batch of candidate control sequences: the
 T-step × 10-substep brush-tire integration (car_racing.jl:282-344), the
 track distance query (car_racing_tracks.jl:64-92), the reward
 (car_racing.jl:201-213; joint multi-car reward with pairwise distance and
-collision terms, multi-car_racing.jl:145-158), and cost accumulation — with
-all car states resident in VMEM/vector registers the whole time. This
-replaces ~T×substeps separate XLA fusions in the vmap path (the hot loop
-identified in SURVEY.md §3.1: K·N·T·10 tire-model evaluations per control
-step).
+collision terms, multi-car_racing.jl:145-158), and cost accumulation.
 
-Layout: samples are laid out as (S, 128) f32 tiles (S sublane-groups of 128
-lanes); each physical quantity of each car (x, y, Ψ, Vx, Vy, Ψ̇, δ, cost, …)
-is one such tile set, so every dynamics op — including the cross-car
-pairwise-distance reward terms — is a dense VPU op. The subsampled track
-centerline lives in SMEM and the argmin/neighbor/projection query is a
-fori_loop of scalar-broadcast compares — no gathers.
+Why a kernel: one rollout is T·10 dependent substeps (500 at T=50, 5,000
+per 10-iteration AIS control step). The vmap path (models/rollout.py) runs
+them as a `lax.scan`, and every scan iteration is at least one kernel
+launch carrying a few microseconds of work at K=150.
 
-Physics parameters and track geometry are baked into the kernel as
-compile-time constants (they are static per environment).
+Layout: one sample per thread. Each program owns `block` samples (a power
+of two); every car's state (x, y, sin ψ, cos ψ, Vx, Vy, ψ̇, δ) and the
+running cost stay in registers for the whole horizon. Controls keep the
+(T, na, K) layout, so each step's load is coalesced along K. The
+subsampled track centerline (~50 points) is read from global memory inside
+a `fori_loop`; every thread of a program reads the same address, so it
+stays in L1. The nearest-point sweep tracks only the argmin index and
+gathers the neighbours once after the sweep. Nothing carries between
+programs.
+
+Physics parameters and the track are static per environment and baked in
+at trace time; the initial state is the only dynamic scalar input.
 """
 
 from __future__ import annotations
@@ -29,13 +33,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from mpopis_tpu.kernels import kmath
 from mpopis_tpu.models.car_racing import CarParams
 
 _G = 9.81
-LANES = 128
+
+# Samples per program, one per thread (num_warps = block / 32). On the H100
+# (scripts/ab_car_kernel.py) blocks of 32, 64 and 128 samples tie in the
+# policy step at K=150 and K=8192; two or four samples per thread (fewer
+# warps) ran the rollout 1.4-4x slower.
+DEFAULT_BLOCK = 32
+
+# rows of the packed track table
+_TX, _TY, _TW, _TC, _TX2, _TY2 = range(6)
 
 
 def _tire_fy_sc(sin_num, cos_num, vx, y_num, mu, c_a, fz, fx):
@@ -46,8 +57,8 @@ def _tire_fy_sc(sin_num, cos_num, vx, y_num, mu, c_a, fz, fx):
     (models/car_racing.py::_tire_fy, ref car_racing.jl:252-260). α only
     enters the tire model through tan(α), sign(α), and the test
     |α| < atan(3·fy_max/c_a) — all exactly recoverable from the
-    components, which replaces two polynomial transcendentals (atan2 +
-    atan) and a tan per tire per substep with one divide and compares:
+    components, which replaces atan2, atan and tan per tire per substep
+    with one divide and compares:
 
     - tan(α) = sin_num / cos_num (quotient identity);
     - |α| < atan(q) ⟺ cos(α) > 0 ∧ |tan(α)| < q, and since the unwrapped
@@ -76,60 +87,42 @@ def _tire_fy_sc(sin_num, cos_num, vx, y_num, mu, c_a, fz, fx):
     return jnp.where(in_range, cubic, sat)
 
 
-def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
-                 m_track: int, beta_limit: float, num_cars: int):
+def _make_kernel(p: CarParams, n_sub: int, dt: float, ddt: float,
+                 m_track: int, num_cars: int):
     """Build the kernel body with physics constants baked in."""
     ll = p.l_r + p.l_f
 
-    def kernel(state0_ref, tx_ref, ty_ref, tw_ref, tc_ref, tx2_ref, ty2_ref,
-               controls_ref, costs_ref):
-        s_sub = costs_ref.shape[0]  # sublane-groups per block
-        shape = (s_sub, LANES)
+    def kernel(state0_ref, track_ref, controls_ref, costs_ref):
+        horizon = controls_ref.shape[0]
+        block = costs_ref.shape[0]
 
         def full(v):
-            return jnp.full(shape, v, dtype=jnp.float32)
+            return jnp.full((block,), v, dtype=jnp.float32)
 
         def track_dist(x, y):
-            """(within, dist) per lane; ref car_racing_tracks.jl:64-92."""
+            """(within, dist) per sample; ref car_racing_tracks.jl:64-92."""
 
-            def one_pt(m, carry):
-                min_d2, bx, by, bpx, bpy, bnx, bny, bw = carry
-                px = tx_ref[0, m]
-                py = ty_ref[0, m]
-                # squared distance up to the per-query constant x²+y²:
-                # c_m − 2pₓx − 2pᵧy (precomputed c_m, 2pₓ, 2pᵧ in SMEM) —
-                # two FMAs instead of five ops; argmin is offset-invariant
-                d2 = tc_ref[0, m] - tx2_ref[0, m] * x - ty2_ref[0, m] * y
-                better = d2 < min_d2
-                m_prev = jax.lax.rem(m - 1 + m_track, m_track)
-                m_next = jax.lax.rem(m + 1, m_track)
-                return (
-                    jnp.where(better, d2, min_d2),
-                    jnp.where(better, px, bx),
-                    jnp.where(better, py, by),
-                    jnp.where(better, tx_ref[0, m_prev], bpx),
-                    jnp.where(better, ty_ref[0, m_prev], bpy),
-                    jnp.where(better, tx_ref[0, m_next], bnx),
-                    jnp.where(better, ty_ref[0, m_next], bny),
-                    jnp.where(better, tw_ref[0, m], bw),
-                )
+            def sweep(m, carry):
+                min_d2, best = carry
+                # squared distance up to the per-sample constant x²+y²:
+                # c_m − 2pₓx − 2pᵧy; the argmin is offset-invariant
+                d2 = (track_ref[_TC, m] - track_ref[_TX2, m] * x
+                      - track_ref[_TY2, m] * y)
+                better = d2 < min_d2  # strict: the first minimum wins
+                return jnp.where(better, d2, min_d2), jnp.where(better, m, best)
 
-            # 4x manual unroll of the centerline sweep: fewer loop-carried
-            # iterations for the same compare/select work.
-            unroll = 4
-            m_main = (m_track // unroll) * unroll
-
-            def scan_block(b, carry):
-                m0 = b * unroll
-                for off in range(unroll):
-                    carry = one_pt(m0 + off, carry)
-                return carry
-
-            init = (full(3.4e38), full(0.0), full(0.0), full(0.0),
-                    full(0.0), full(0.0), full(0.0), full(0.0))
-            carry = jax.lax.fori_loop(0, m_main // unroll, scan_block, init)
-            carry = jax.lax.fori_loop(m_main, m_track, one_pt, carry)
-            _, bx, by, bpx, bpy, bnx, bny, bw = carry
+            _, best = jax.lax.fori_loop(
+                jnp.int32(0), jnp.int32(m_track), sweep,
+                (full(3.4e38), jnp.zeros((block,), jnp.int32)),
+            )
+            prev = jnp.where(best == 0, m_track - 1, best - 1)
+            nxt = jnp.where(best == m_track - 1, 0, best + 1)
+            bx = track_ref[_TX, best]
+            by = track_ref[_TY, best]
+            bpx = track_ref[_TX, prev]
+            bpy = track_ref[_TY, prev]
+            bnx = track_ref[_TX, nxt]
+            bny = track_ref[_TY, nxt]
             d_prev2 = (bpx - x) ** 2 + (bpy - y) ** 2
             d_next2 = (bnx - x) ** 2 + (bny - y) ** 2
             use_prev = d_prev2 <= d_next2
@@ -142,15 +135,15 @@ def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
             projx = bx + t_par * segx
             projy = by + t_par * segy
             dist = jnp.sqrt((projx - x) ** 2 + (projy - y) ** 2)
-            return dist < bw, dist
+            return dist < track_ref[_TW, best], dist
 
         def car_reward(car):
             """Per-car reward (ref car_racing.jl:201-213)."""
-            x, y, _sin_p, _cos_p, vx, vy, psid, delta = car
+            x, y, _sin_p, _cos_p, vx, vy, _psid, _delta = car
             within, dist = track_dist(x, y)
-            beta = kmath.atan2(vy, vx)
+            beta = jnp.arctan2(vy, vx)
             rew = jnp.where(within, 0.0, -1000000.0)
-            rew = rew + jnp.where(jnp.abs(beta) > beta_limit, -5000.0, 0.0)
+            rew = rew + jnp.where(jnp.abs(beta) > p.beta_limit, -5000.0, 0.0)
             rew = rew - dist
             rew = rew + 2.0 * jnp.sqrt(vx * vx + vy * vy)
             return rew
@@ -164,7 +157,7 @@ def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
             angle rotation (4th-order sin/cos of ψ̇·δt, renormalized once per
             action step) and δ's sin/cos by composing a per-action-step
             constant rotation (δ̇ is constant within the step, ref :295-296),
-            replacing four native transcendentals per substep with a few
+            replacing four transcendentals per substep with a few
             multiply-adds.
             """
             x, y, sin_p, cos_p, vx, vy, psid, delta = car
@@ -176,7 +169,7 @@ def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
             lam = jnp.where(pedal <= 0.0, p.lambda_brake, p.lambda_drive)
             accel = p.fx_max * jnp.maximum(pedal, 0.0)
 
-            # δ rotation increment for this action step (native trig once)
+            # δ rotation increment for this action step (trig once)
             d_step = ddelta * ddt
             sin_e = jnp.sin(d_step)
             cos_e = jnp.cos(d_step)
@@ -201,7 +194,6 @@ def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
                 fx = accel + brake
                 fxf = lam * fx
                 fxr = (1.0 - lam) * fx
-                # div-by-constant → mul (ll, m, i_zz are compile-time)
                 fzf = (p.m * p.l_r * _G - p.h_cm * fx) * (1.0 / ll)
                 fzr = (p.m * p.l_f * _G + p.h_cm * fx) * (1.0 / ll)
                 fyf = _tire_fy_sc(sin_f, cos_f, vx, y_f, p.mu_f, p.c_af, fzf, fxf)
@@ -217,7 +209,7 @@ def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
                 vx = vx + vx_dot * ddt
                 vy = vy + vy_dot * ddt
                 # rotate (sin ψ, cos ψ) by the small angle ψ̇·δt (|dψ|≲0.05:
-                # 4th-order series is below f32 rounding of native sin/cos)
+                # the 4th-order series is below f32 rounding of sin/cos)
                 dp = psid * ddt
                 dp2 = dp * dp
                 sin_q = dp * (1.0 - dp2 * (1.0 / 6.0))
@@ -234,12 +226,14 @@ def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
 
         def action_step(t, carry):
             cars, cost = carry
-            new_cars = []
-            for ci in range(num_cars):
-                steer = controls_ref[t, 2 * ci, :].reshape(shape)
-                pedal = controls_ref[t, 2 * ci + 1, :].reshape(shape)
-                new_cars.append(advance_car(cars[ci], steer, pedal))
-
+            new_cars = tuple(
+                advance_car(
+                    cars[ci],
+                    controls_ref[t, 2 * ci, :],
+                    controls_ref[t, 2 * ci + 1, :],
+                )
+                for ci in range(num_cars)
+            )
             rew = full(0.0)
             for ci in range(num_cars):
                 rew = rew + car_reward(new_cars[ci])
@@ -251,25 +245,20 @@ def _make_kernel(p: CarParams, horizon: int, n_sub: int, dt: float, ddt: float,
                     dd = jnp.sqrt(dx * dx + dy * dy + 1e-30)
                     rew = rew - dd
                     rew = rew - jnp.where(dd <= 4.0, 11000.0, 0.0)
-            return (tuple(new_cars), cost - rew)
+            return new_cars, cost - rew
 
-        cars0 = tuple(
-            (
-                full(state0_ref[0, 8 * ci + 0]),  # x
-                full(state0_ref[0, 8 * ci + 1]),  # y
-                jnp.sin(full(state0_ref[0, 8 * ci + 2])),  # sin ψ
-                jnp.cos(full(state0_ref[0, 8 * ci + 2])),  # cos ψ
-                full(state0_ref[0, 8 * ci + 3]),  # Vx
-                full(state0_ref[0, 8 * ci + 4]),  # Vy
-                full(state0_ref[0, 8 * ci + 5]),  # ψ̇
-                full(state0_ref[0, 8 * ci + 6]),  # δ
-            )
-            for ci in range(num_cars)
+        def car0(ci):
+            s = [state0_ref[8 * ci + j] for j in range(8)]
+            x, y, psi, vx, vy, psid, delta = s[:7]
+            return tuple(full(v) for v in (
+                x, y, jnp.sin(psi), jnp.cos(psi), vx, vy, psid, delta
+            ))
+
+        cars0 = tuple(car0(ci) for ci in range(num_cars))
+        _, cost = jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(horizon), action_step, (cars0, full(0.0))
         )
-        final_cars, final_cost = jax.lax.fori_loop(
-            0, horizon, action_step, (cars0, full(0.0))
-        )
-        costs_ref[:, :] = final_cost
+        costs_ref[:] = cost
 
     return kernel
 
@@ -281,122 +270,81 @@ def _round_up(x: int, m: int) -> int:
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "params", "track_xs", "track_ys", "track_ws", "dt", "ddt",
-        "horizon", "num_cars", "block_k", "interpret",
+        "params", "track", "dt", "ddt", "num_cars", "block", "interpret",
     ),
 )
 def _car_rollout_costs_impl(
     params: CarParams,
-    track_xs,
-    track_ys,
-    track_ws,
+    track: tuple,  # ((xs...), (ys...), (widths...)) — hashable for jit
     dt: float,
     ddt: float,
     state0_x: jnp.ndarray,
     controls_tak: jnp.ndarray,  # (T, na, K)
-    horizon: int,
     num_cars: int,
-    block_k: int,
+    block: int,
     interpret: bool,
 ) -> jnp.ndarray:
-    k = controls_tak.shape[2]
+    horizon, na, k = controls_tak.shape
     n_sub = int(round(dt / ddt))
-    m_track = len(track_xs)
+    xs, ys, ws = (np.asarray(a, dtype=np.float64) for a in track)
+    track_tab = np.stack([xs, ys, ws, xs * xs + ys * ys, 2.0 * xs, 2.0 * ys])
+    m_track = track_tab.shape[1]
 
-    k_pad = _round_up(k, LANES)
-    if k_pad <= block_k:
-        # single block: block shape == full array shape (exempt from the
-        # (8,128) minimum-tile rule)
-        block_k = k_pad
-    else:
-        block_k = max(block_k, 8 * LANES)  # min out tile (8,128) per block
-        k_pad = _round_up(k_pad, block_k)
-    s_sub = block_k // LANES
-    grid = (k_pad // block_k,)
-    na = 2 * num_cars
+    k_pad = _round_up(k, block)
+    ctrl = controls_tak.astype(jnp.float32)
+    if k_pad != k:
+        ctrl = jnp.pad(ctrl, ((0, 0), (0, 0), (0, k_pad - k)))
+    state0 = state0_x[: 8 * num_cars].astype(jnp.float32)
 
-    if k_pad == k:
-        ctrl = controls_tak.astype(jnp.float32)
-    else:
-        ctrl = jnp.zeros((horizon, na, k_pad), dtype=jnp.float32)
-        ctrl = ctrl.at[:, :, :k].set(controls_tak.astype(jnp.float32))
-    state0 = state0_x[: 8 * num_cars].astype(jnp.float32).reshape(1, -1)
-    tx = jnp.asarray(track_xs, dtype=jnp.float32).reshape(1, -1)
-    ty = jnp.asarray(track_ys, dtype=jnp.float32).reshape(1, -1)
-    tw = jnp.asarray(track_ws, dtype=jnp.float32).reshape(1, -1)
-    tc = tx * tx + ty * ty
-    tx2 = 2.0 * tx
-    ty2 = 2.0 * ty
-
-    kernel = _make_kernel(
-        params, horizon, n_sub, dt, ddt, m_track, params.beta_limit, num_cars
-    )
+    kernel = _make_kernel(params, n_sub, dt, ddt, m_track, num_cars)
     costs = pl.pallas_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((k_pad // LANES, LANES), jnp.float32),
-        grid=grid,
+        out_shape=jax.ShapeDtypeStruct((k_pad,), jnp.float32),
+        grid=(k_pad // block,),
         in_specs=[
-            pl.BlockSpec((1, 8 * num_cars), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, m_track), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, m_track), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, m_track), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, m_track), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, m_track), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, m_track), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (horizon, na, block_k), lambda i: (0, 0, i), memory_space=pltpu.VMEM
-            ),
+            pl.BlockSpec((8 * num_cars,), lambda i: (0,)),
+            pl.BlockSpec((6, m_track), lambda i: (0, 0)),
+            pl.BlockSpec((horizon, na, block), lambda i: (0, 0, i)),
         ],
-        out_specs=pl.BlockSpec(
-            (s_sub, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
+        out_specs=pl.BlockSpec((block,), lambda i: (i,)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=max(block // 32, 1), num_stages=1
         ),
         interpret=interpret,
-    )(state0, tx, ty, tw, tc, tx2, ty2, ctrl)
-    return costs.reshape(-1)[:k]
+        name="car_rollout",
+    )(state0, jnp.asarray(track_tab, dtype=jnp.float32), ctrl)
+    return costs[:k]
 
 
 def car_rollout_costs(
     env,
     state0_x: jnp.ndarray,
-    controls: jnp.ndarray,  # (K, T, 2*num_cars), already clamped
-    horizon: int,
-    block_k: int = 1024,
+    controls_tak: jnp.ndarray,  # (T, 2*num_cars, K), already clamped
+    block: int | None = None,
     interpret: bool = False,
 ) -> jnp.ndarray:
     """Fused rollout for CarRacingEnv / MultiCarRacingEnv: (K,) trajectory
-    costs Σ_t -reward(s_t). Semantically identical to rollout_batch (the
-    vmap path is the correctness oracle; see tests/test_kernels.py)."""
-    ctrl_tak = jnp.transpose(controls, (1, 2, 0))
-    return car_rollout_costs_tak(
-        env, state0_x, ctrl_tak, horizon, block_k=block_k, interpret=interpret
-    )
-
-
-def car_rollout_costs_tak(
-    env,
-    state0_x: jnp.ndarray,
-    controls_tak: jnp.ndarray,  # (T, 2*num_cars, K), already clamped
-    horizon: int,
-    block_k: int = 1024,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Fused rollout taking controls in the kernel's native (T, na, K)
-    layout — a flat (cs, K) candidate matrix reshapes to this for free, so
-    the GMPPI driver's hot path avoids any transpose."""
-    num_cars = getattr(env, "num_cars", 1)
-    # hashable track arrays for the jit static trace: pass as tuples
+    costs Σ_t -reward(s_t), the same costs as `rollout_batch` (the vmap path
+    is the correctness oracle; see tests/test_kernels.py). Controls come in
+    the kernel's (T, na, K) layout — a flat (cs, K) candidate matrix
+    reshapes to it for free. `block` samples per program (default
+    `DEFAULT_BLOCK`, one per thread) must be a power of two."""
+    if block is None:
+        block = DEFAULT_BLOCK
+    if block <= 0 or block & (block - 1):
+        raise ValueError(f"block must be a power of two, got {block}")
+    track = env.track
     costs = _car_rollout_costs_impl(
         env.params,
-        tuple(env.track.xs.tolist()),
-        tuple(env.track.ys.tolist()),
-        tuple(env.track.lane_width_s.tolist()),
+        (tuple(track.xs.tolist()), tuple(track.ys.tolist()),
+         tuple(track.lane_width_s.tolist())),
         env.dt,
         env.ddt,
         state0_x,
         controls_tak,
-        horizon,
-        num_cars,
-        block_k,
+        getattr(env, "num_cars", 1),
+        block,
         interpret,
     )
     return costs.astype(env.dtype)

@@ -22,12 +22,11 @@ constrained forward dynamics by automatic differentiation —
   integration), and gymnasium observations/rewards read those stale
   fields.
 
-TPU layout discipline (measured, see BENCH.md): everything is a SCALAR
-expression over tuples — never a (…,n) array. Under vmap scalars become
-dense (K,) vectors filling all 128 VPU lanes; (K,n) layouts pad the minor
-dimension to 128 lanes and run ~100× slower, and batched tiny
-`jnp.linalg.cholesky` lowers to dynamic-slice loops — hence the unrolled
-scalar Cholesky.
+Layout discipline: everything is a SCALAR expression over tuples — never
+a (…,n) array. Under vmap scalars become dense (K,) vectors along the
+sample axis; a (K,n) layout with small n wastes the minor dimension, and
+batched tiny `jnp.linalg.cholesky` lowers to dynamic-slice loops — hence
+the unrolled scalar Cholesky.
 """
 
 from __future__ import annotations

@@ -6,12 +6,11 @@ models/cheetah_device.py) to the whole planar-locomotion family
 envpool, src/envs/envpool_env.jl:35-61). A model is a static constant
 table probed from the compiled MjModel (scripts/probe_planar.py); the
 builder turns it into pure-JAX substep functions in the scalar/SoA layout
-(every quantity a (K,) vector under vmap — see BENCH.md "Swimmer layout
-lesson").
+(every quantity a (K,) vector under vmap).
 
 Everything below was probed from the mujoco wheel and verified
-numerically (docs/ROADMAP.md records the original cheetah probes; the
-Hopper/Walker2d extensions re-verified on those models):
+numerically (the original cheetah probes; the Hopper/Walker2d
+extensions re-verified on those models):
 
 - plane-capsule collision: one candidate contact per capsule end sphere;
   dist = p_z − radius, ACTIVE when dist < includemargin (the sum of the
@@ -530,7 +529,7 @@ def solve_qp(
     static-sparsity J (`zero` is the shared structural-zero sentinel the
     rows were built with). Returns qfrc_constraint as an n_dof tuple.
     Matches MuJoCo's Newton optimum to machine precision at (6, 40) on
-    realistic trajectories (round-1 measurement, docs/ROADMAP.md).
+    realistic trajectories (measured on CPU in f64).
 
     `lam0` ((n_rows,) + sample shape) WARM-STARTS the solve from the
     previous substep's multipliers (contact forces are continuous in
@@ -622,7 +621,7 @@ def _qp_iterate(ar_apply, rhs, valid, lam0, outer: int, cg: int):
         # projected ARC search (Bertsekas projected-Newton style): the
         # naive solve-then-project update can CYCLE between wrong active
         # sets or stall (both observed on Walker2d fallen-flat multi-
-        # contact states — docs/ROADMAP.md round-2 notes). Along the arc
+        # contact states). Along the arc
         # λ(t) = max(λ + t·(x − λ), 0) the small-t direction is a Newton
         # descent direction on the free set, so picking the best of a
         # fixed trial ladder (t=0 included) is monotone and breaks the
@@ -648,8 +647,8 @@ def _qp_iterate(ar_apply, rhs, valid, lam0, outer: int, cg: int):
         return best_lam
 
     # Contact-free fast path: when NO row is active anywhere in this batch
-    # (hopper/walker flight phases — inside the fused kernel "batch" is the
-    # whole K-block, under vmap it's one sample), the unique optimum is
+    # (hopper/walker flight phases — under vmap "batch" is one sample),
+    # the unique optimum is
     # λ = 0 exactly (rhs and the warm start are already masked to 0), so
     # the whole active-set/CG/arc-search iteration is skipped. Bitwise
     # identical to running the solve: every iterate stays 0.

@@ -24,7 +24,7 @@ fingertip−target]. Reset is deterministic (qpos0: arm at 0, target at
 (0.1, −0.1)) matching the batch engine's reset, not gym's randomized one.
 
 Capability context: the reference reaches MuJoCo through envpool's C++
-pool (envpool_env.jl:35-61); this is the TPU-resident equivalent for the
+pool (envpool_env.jl:35-61); this is the device-resident equivalent for the
 closed-form-able tasks.
 """
 

@@ -54,8 +54,8 @@ compiles take tens of minutes; stacking J into one (rows, dofs) array
 keeps the same math in a handful of array ops. λ warm starts and the
 contact-free fast path carry over unchanged.
 
-TPU layout discipline: everything is a SCALAR expression over tuples
-(vmap makes each a dense (K,) lane vector). Static model constants stay
+Layout discipline: everything is a SCALAR expression over tuples
+(vmap makes each a dense (K,) vector). Static model constants stay
 python floats; `_mul`/`_add` below short-circuit them so identity body
 quats, axis zeros and static anchors never emit device ops (the planar
 family did this by hand; 3D needs it systematically).
@@ -975,7 +975,7 @@ def _capsule_cylinder(model: SpatialContactModel, fr: Frames,
     lo = jnp.zeros_like(a[0])
     hi = jnp.ones_like(a[0])
     # 40 halvings: |hi-lo| ~ 1e-12 — below the f64 GJK comparison
-    # tolerance and far below f32 resolution on the TPU path
+    # tolerance and far below f32 resolution
     for _ in range(40):
         mid = 0.5 * (lo + hi)
         going_down = dderiv(mid) < 0.0
@@ -1077,14 +1077,12 @@ def build_spatial_stepper(model: SpatialContactModel,
 
     RK4 stage-loop forms (same arithmetic, different emission):
     - "scan" (default): stage coefficients as (4,) scan constants — the
-      cheapest XLA CPU compile (1× qacc in the graph), but the array
-      constants don't lower through Mosaic.
-    - "unroll": the 4 stages inline with static float coefficients —
-      Mosaic-safe, but 4 live qacc bodies spill vregs on big models
-      (~36 MB on the 242-row humanoid at block 128).
-    - "loop": lax.fori_loop with scalar-select coefficients —
-      Mosaic-safe AND 1× qacc live window; the kernel form for big
-      models. `unroll_rk4=True` is the legacy spelling of "unroll".
+      cheapest XLA CPU compile (1× qacc in the graph).
+    - "unroll": the 4 stages inline with static float coefficients — 4
+      live qacc bodies at once.
+    - "loop": lax.fori_loop with scalar-select coefficients — no array
+      constants and a 1× qacc live window, the form for a kernel body.
+      `unroll_rk4=True` is the legacy spelling of "unroll".
 
     QP forms (same _qp_iterate core, same optimum):
     - qp_dense=True: the stacked-J solve (solve_qp_dense) — few big
@@ -1093,9 +1091,8 @@ def build_spatial_stepper(model: SpatialContactModel,
       of minutes).
     - qp_dense=False: the scalar-sparse solve (solve_qp) — unrolls only
       the structurally nonzero J entries (~45% on the spatial models),
-      halving the per-CG-iteration VPU instruction count and the live
-      J footprint inside the Mosaic kernel (kernels/spatial_step.py
-      uses this on the real-TPU path)."""
+      halving the per-CG-iteration instruction count and the live J
+      footprint, the form for a kernel body."""
     if rk4_mode is None:
         rk4_mode = "unroll" if unroll_rk4 else "scan"
     solve = solve_qp_dense if qp_dense else solve_qp
@@ -1213,22 +1210,16 @@ def build_spatial_stepper(model: SpatialContactModel,
     def rk4_substep_loop(q, qv, tau, outer, cg, lam0=None):
         """`rk4_substep` with the stage loop as a `lax.fori_loop` whose
         stage coefficients are scalar selects on the loop index — the
-        Mosaic-safe rolled form. The scan's (4,)-array constants don't
-        lower through Mosaic, and the 4x-unrolled form keeps 4 full
-        qacc_warm bodies live at once, which spills ~36 MB of vregs on
-        the 242-row humanoid (the round-3 vmem OOM); one stage body
-        bounds the live window to 1x qacc. Arithmetic is the scan's:
+        rolled form without array constants. The 4x-unrolled form keeps
+        4 full qacc_warm bodies live at once; one stage body bounds the
+        live window to 1x qacc. Arithmetic is the scan's:
         stage 1 integrates positions by c=0 (exact identity up to one
         quaternion renormalize by rsqrt(1)).
 
-        Loop-carry inits are ANCHORED to data layout (`x * 0.0` /
-        `x + zero` instead of constants): Mosaic infers a fori_loop
-        carry's vector layout from its init, and a replicated init
-        (constant zeros, SMEM broadcasts) against a data-layout body
-        output demands the invalid data->replicated relayout — the same
-        failure family as the round-3 Euler stage-4 alias (VERDICT r3
-        item 2). The anchor adds are exact (0·x = 0, x + 0 = x for
-        finite f32)."""
+        Loop-carry inits are ANCHORED to the data (`x * 0.0` / `x + zero`
+        instead of constants), so every carry has the shape and layout
+        of the body's output. The anchor adds are exact (0·x = 0,
+        x + 0 = x for finite f32)."""
         q = normalize_quat(q, model)
         dt_ = jnp.result_type(q[0])
         zero = q[0] * jnp.asarray(0.0, dtype=dt_)  # data-layout zero

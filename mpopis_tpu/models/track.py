@@ -6,7 +6,7 @@ Reference semantics: car_racing_tracks.jl — `Track(csv; width, sample_factor)`
 (nearest subsampled centerline point → better neighbor → segment projection →
 perpendicular distance vs lane width) maps to a fixed-size argmin + gather,
 which vmaps over K×T rollout positions and folds into the Pallas rollout
-kernel with the subsampled track resident in VMEM.
+kernel, which reads the subsampled track from global memory.
 
 The `distance_query` is jit-safe (static M) and is the single hot geometry
 op: every reward evaluation of every rollout step calls it once per car.

@@ -1,6 +1,6 @@
 // envpool_lite — a minimal native batched-environment engine for MuJoCo.
 //
-// TPU-native equivalent of the reference's external envpool dependency (the
+// In-repo equivalent of the reference's external envpool dependency (the
 // C++ thread-pool batched env engine reached through PyCall at
 // src/envs/envpool_env.jl:35-61): steps K MuJoCo environments in parallel on
 // host threads, with TRUE snapshot/restore (qpos/qvel/time/ctrl copies)

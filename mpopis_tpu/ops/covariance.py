@@ -35,7 +35,7 @@ def weighted_mean_and_cov(e: jnp.ndarray, w: jnp.ndarray):
     `w` is (K,) with Σw = 1. Returns (μ (d,), Σ (d,d)) with the uncorrected
     StatsBase convention Σ = Σ_k w_k (x_k-μ)(x_k-μ)ᵀ.
 
-    The covariance is a single (d,K)x(K,d) matmul — MXU-friendly, and the
+    The covariance is a single (d,K)x(K,d) matmul, and the
     form that psum-composes across a sharded K axis.
     """
     mu = e @ w
@@ -217,8 +217,8 @@ def shrinkage_cov_masked(
     masked columns are centered then zeroed, so every sample sum in the
     estimators (all matmuls/elementwise-square matmuls over the sample
     axis) picks up only the selected columns. Keeps the elite refit
-    K-dense and MXU-shaped instead of paying a (d, m) gather per AIS
-    iteration (the TPU gather was ~2x the cost of a full sort of K).
+    K-dense and matmul-shaped instead of paying a (d, m) gather per AIS
+    iteration.
     """
     try:
         est = _MASKED_ESTIMATORS[method]

@@ -3,7 +3,8 @@
 Reference semantics: `rand(rng, MvNormal(Σ), K)` draws throughout
 mppi_mpopi_policies.jl (e.g. :154-156, :447-448) and the PMC categorical
 resampling at :803-806. The reference's MersenneTwister stream cannot (and
-should not) be reproduced on TPU; we use JAX's counter-based threefry keys.
+should not) be reproduced on the device; we use JAX's counter-based
+threefry keys.
 Parity vs the Julia reference is defined at matched sampling *moments*
 (BASELINE.json), and `mvnormal_samples` accepts externally injected standard
 normals (`z`) so exact-match debugging against any RNG is possible.
@@ -51,8 +52,8 @@ def multinomial_resample_indices(
     cdf = jnp.cumsum(weights)
     cdf = cdf / cdf[-1]
     u = jax.random.uniform(key, (num_draws,), dtype=weights.dtype)
-    # method="sort" (concatenate + argsort) is ~25x faster on TPU than the
-    # default binary-search scan at K=8192
+    # method="sort" (concatenate + argsort) instead of the default
+    # binary-search scan; which is faster on the GPU is not measured yet
     return jnp.searchsorted(cdf, u, side="left", method="sort").astype(jnp.int32)
 
 
@@ -62,8 +63,8 @@ def multinomial_resample_counts(
     """Draw counts per category for `num_draws` iid Categorical(weights)
     draws — the same multiset as `multinomial_resample_indices` on the same
     key (bitwise: identical uniforms, identical bucketing), but computed as
-    a fused (K, K) compare-reduce instead of searchsorted + scatter-add,
-    which is ~20x faster on TPU. Use when only multiset statistics (moments)
+    a fused (K, K) compare-reduce instead of searchsorted + scatter-add.
+    Use when only multiset statistics (moments)
     of the resampled set are needed, not the draw order.
     """
     cdf = jnp.cumsum(weights)

@@ -2,9 +2,9 @@
 
 The reference's only parallelism is Julia threads over the K candidate
 rollouts (mppi_mpopi_policies.jl:269-270) and envpool's C++ thread pool.
-The TPU-native scaling dimension is the same K axis, sharded over a 1-D
-`jax.sharding.Mesh` ("samples"): rollouts fan out across chips over ICI,
-while the tiny distribution-update math stays replicated. Cross-shard
+The scaling dimension here is the same K axis, sharded over a 1-D
+`jax.sharding.Mesh` ("samples"): rollouts fan out across devices, while
+the tiny distribution-update math stays replicated. Cross-shard
 reductions (cost min/sum, weighted moments, global top-k) ride XLA
 collectives — see mpopis_tpu.parallel.collectives.
 """
@@ -39,7 +39,7 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 
 def distributed_init(**kwargs) -> None:
-    """Multi-host initialization (v5e/v5p slices over DCN).
+    """Multi-host initialization.
 
     Thin wrapper over jax.distributed.initialize; no-op if already
     initialized. On single-host (including CPU test topologies) this is not

@@ -16,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 import jax
-from flax import struct
+
+from mpopis_tpu.models.base import pytree_dataclass
 
 POLICY_KINDS = (
     "mppi",
@@ -65,7 +66,7 @@ class PolicyConfig:
     cma_elite_threshold: float = 0.8
     nes_step_factor: float = 0.01
     log: bool = False  # capture K trajectories/costs/weights per step
-    use_fused_rollout: bool = True  # Pallas kernel when the env provides one
+    use_fused_rollout: bool = True  # Pallas kernel where the env's seam allows
 
     # Reference-quirk reproduction flags (see SURVEY.md §2.1): defaults keep
     # bit-level semantic parity with MPOPIS.
@@ -79,7 +80,7 @@ class PolicyConfig:
     # (safe in f64, can overflow to NaN in f32 with cma_rank_mu_quirk).
     cma_stability_guards: bool = True
     # Compute CMA's C = Σ^{-1/2} by a matmul-only Newton-Schulz iteration
-    # (MXU work) with a runtime lax.cond fallback to eigh when the
+    # with a runtime lax.cond fallback to eigh when the
     # iteration has not converged (ill-conditioned or indefinite Σ).
     # Default False: parity semantics keep the eigendecomposition.
     cma_fast_sqrt: bool = False
@@ -92,7 +93,8 @@ class PolicyConfig:
         return self.lam * (1.0 - self.alpha)
 
 
-class PolicyState(struct.PyTreeNode):
+@pytree_dataclass
+class PolicyState:
     """Carried across control steps: receding-horizon mean + RNG key."""
 
     U: jax.Array  # (cs,) flat nominal control sequence

@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mpopis_tpu.kernels.linalg import forward_solve
 from mpopis_tpu.models.base import Env, EnvState, make_state
 from mpopis_tpu.models.rollout import rollout_batch
 from mpopis_tpu.ops.controls import roll_controls
@@ -33,19 +32,34 @@ from mpopis_tpu.policies.config import PolicyConfig, PolicyState, init_policy_st
 from mpopis_tpu.policies.strategies import AISCarry, CMAStrategy, NESStrategy, make_strategy
 
 
+# Precision of every f32 matrix product in the policy step: the sampling
+# product chol·z, the weighted refits E·diag(w)·Eᵀ and the final weighted
+# sum. At "default", XLA on a GPU may run f32 products in TF32 (about
+# three decimal digits); on an H100 that moved U by up to 4e-3 against the
+# CPU step. These products are small next to the rollout (one
+# (cs, cs)·(cs, K) product per AIS iteration).
+MATMUL_PRECISION = "highest"
+
+
 def tree_select(pred, on_true, on_false):
     return jax.tree.map(lambda a, b: jnp.where(pred, a, b), on_true, on_false)
 
 
-def _shard_map_fused(env, sample_sharding, layout: str, k_samples: int):
-    """shard_map wrapper running the env's fused Pallas rollout on each
-    device's local K-shard (a pallas_call cannot be auto-partitioned by
-    GSPMD, so manual sharding keeps the fast kernel on the multi-chip
-    path). `layout` is "kta" for (K,T,as) controls or "tak" for (T,as,K).
-    The initial env state is replicated; costs come back sharded over K.
-    Returns None when K does not divide over the mesh (caller falls back
-    to the GSPMD vmap path).
+def _fused_rollout(env, sample_sharding, k_samples: int):
+    """The env's fused rollout kernel as `f(x0, controls_tak) -> (K,)`
+    costs, for (T, as, K) clamped controls. Under explicit sample sharding
+    the kernel runs on each device's local K-shard inside shard_map (a
+    pallas_call cannot be auto-partitioned by GSPMD); the initial env state
+    is replicated and the costs come back sharded over K. Returns None when
+    K does not divide over the mesh (the caller then takes the GSPMD vmap
+    rollout).
     """
+    def local(x, controls_tak):
+        return env.fused_rollout_costs(make_state(x), controls_tak)
+
+    if sample_sharding is None:
+        return local
+
     import jax.sharding as shd
 
     mesh = sample_sharding.mesh
@@ -57,58 +71,24 @@ def _shard_map_fused(env, sample_sharding, layout: str, k_samples: int):
         warnings.warn(
             f"num_samples={k_samples} not divisible by the {n_shards}-device "
             f"sample mesh; the fused rollout kernel needs even shards — "
-            f"falling back to the GSPMD vmap rollout",
+            f"using the GSPMD vmap rollout",
             stacklevel=3,
         )
         return None
-    if layout == "kta":
-        ctrl_spec = shd.PartitionSpec(axis, None, None)
-
-        def local(x, controls):
-            return env.fused_rollout_costs(make_state(x), controls)
-    else:
-        ctrl_spec = shd.PartitionSpec(None, None, axis)
-
-        def local(x, controls):
-            return env.fused_rollout_costs_tak(make_state(x), controls)
-
     return jax.shard_map(
         local,
         mesh=mesh,
-        in_specs=(shd.PartitionSpec(), ctrl_spec),
+        in_specs=(shd.PartitionSpec(), shd.PartitionSpec(None, None, axis)),
         out_specs=shd.PartitionSpec(axis),
         # pallas_call does not carry varying-mesh-axes metadata
         check_vma=False,
     )
 
 
-def _make_base_rollout(env, cfg, sample_sharding, force_generic: bool = False):
-    """Trajectory-cost evaluator: fused Pallas kernel when the env provides
-    one and nothing requires the generic path (trajectory logging needs
-    per-step states). Under explicit sample sharding the kernel runs
-    per-shard inside shard_map. `force_generic` skips the fused paths when
-    the caller already handles (or has ruled out) the kernel itself."""
-    use_fused = (
-        not force_generic
-        and cfg.use_fused_rollout
-        and not cfg.log
-        and getattr(env, "supports_fused_rollout", False)
-    )
-    fused_kta = (
-        _shard_map_fused(env, sample_sharding, "kta", cfg.num_samples)
-        if use_fused and sample_sharding is not None
-        else None
-    )
-    if fused_kta is not None:
-        def rollout_fn(env_state, controls):
-            return fused_kta(env_state.x, controls), None
-    elif use_fused and sample_sharding is None:
-        def rollout_fn(env_state, controls):
-            return env.fused_rollout_costs(env_state, controls), None
-    else:
-        def rollout_fn(env_state, controls):
-            return rollout_batch(env, env_state, controls, cfg.log)
-    return rollout_fn
+def _use_fused(env, cfg) -> bool:
+    """Fused kernel when the env's backend seam allows it and nothing needs
+    the generic path (trajectory logging needs per-step states)."""
+    return cfg.use_fused_rollout and not cfg.log and env.supports_fused_rollout
 
 
 def _principal_sqrtm(sigma: np.ndarray) -> np.ndarray:
@@ -200,59 +180,19 @@ def make_policy(
         else:
             raise ValueError("covariance must be (as,as)-block or (cs,cs)")
 
-    def build(cfg_):
-        if cfg_.kind == "mppi":
-            return _make_mppi_step(env, cfg_, u0_flat, sigma, sample_sharding)
-        return _make_gmppi_step(env, cfg_, u0_flat, sigma, sample_sharding)
+    if cfg.kind == "mppi":
+        inner = _make_mppi_step(env, cfg, u0_flat, sigma, sample_sharding)
+    else:
+        inner = _make_gmppi_step(env, cfg, u0_flat, sigma, sample_sharding)
+    precision = MATMUL_PRECISION
 
-    step = build(cfg)
+    def step(env_state, pol_state, z=None):
+        with jax.default_matmul_precision(precision):
+            return inner(env_state, pol_state, z)
+
     if jit:
         step = jax.jit(step)
-        if (
-            cfg.use_fused_rollout
-            and not cfg.log
-            and getattr(env, "supports_fused_rollout", False)
-        ):
-            step = _with_fused_fallback(step, build, cfg)
     return Policy(env=env, cfg=cfg, u0_flat=u0_flat, sigma=sigma, step=step)
-
-
-def _with_fused_fallback(jitted_step, build, cfg):
-    """Degrade to the generic vmap rollout if the fused Pallas kernel
-    fails to COMPILE on this backend (utils/fallback.py) — a Mosaic
-    regression must not crash a vmap-capable task (VERDICT r3 item 2).
-    Only kernel-compile errors trigger the rebuild; everything else
-    propagates. Callers that jit a larger step themselves (jit=False)
-    get the same protection from the harness
-    (simulate.py::_simulate_simple's warm-up probe)."""
-    import dataclasses as _dc
-
-    state = {"step": jitted_step, "fallen_back": False}
-
-    def step(*args, **kwargs):
-        try:
-            return state["step"](*args, **kwargs)
-        except Exception as exc:  # noqa: BLE001 — filtered below
-            from mpopis_tpu.utils.fallback import is_kernel_compile_error
-
-            if state["fallen_back"] or not is_kernel_compile_error(exc):
-                raise
-            import warnings
-
-            warnings.warn(
-                "fused Pallas rollout failed to compile on this backend "
-                f"({type(exc).__name__}); falling back to the generic "
-                "vmap rollout — expect reduced throughput. Error: "
-                f"{str(exc).splitlines()[0][:200]}",
-                stacklevel=2,
-            )
-            state["fallen_back"] = True
-            state["step"] = jax.jit(
-                build(_dc.replace(cfg, use_fused_rollout=False))
-            )
-            return state["step"](*args, **kwargs)
-
-    return step
 
 
 # ---------------------------------------------------------------------------
@@ -285,47 +225,35 @@ def _make_gmppi_step(env, cfg, u0_flat, sigma0, sample_sharding):
             return jax.lax.with_sharding_constraint(x, sample_sharding)
         return x
 
-    use_fused = (
-        cfg.use_fused_rollout
-        and not cfg.log
-        and getattr(env, "supports_fused_rollout", False)
-    )
-    fused_handled = use_fused  # this builder owns the fused path entirely
-    fused_sharded = (
-        _shard_map_fused(env, sample_sharding, "tak", cfg.num_samples)
-        if use_fused and sample_sharding is not None
+    fused = (
+        _fused_rollout(env, sample_sharding, k_samples)
+        if _use_fused(env, cfg)
         else None
-    )
-    if sample_sharding is not None and fused_sharded is None:
-        use_fused = False  # uneven shards: GSPMD vmap fallback
-    base_rollout = _make_base_rollout(
-        env, cfg, sample_sharding, force_generic=fused_handled
     )
 
     def compute_costs(env_state, u_cur, e, chol, u_orig, z_n):
         v = u_cur[:, None] + e  # (cs, K), unclamped candidates
-        if use_fused:
+        if fused is not None:
             # clamp in flat layout; (cs,K) -> (T,na,K) is a free reshape, so
             # the kernel's native layout is reached with zero transposes
             low_f = jnp.tile(low, horizon)[:, None]
             high_f = jnp.tile(high, horizon)[:, None]
             vc = jnp.clip(v, low_f, high_f).reshape(horizon, action_dim, k_samples)
-            if fused_sharded is not None:
-                base, trajs = fused_sharded(env_state.x, vc), None
-            else:
-                base, trajs = env.fused_rollout_costs_tak(env_state, vc), None
+            base, trajs = fused(env_state.x, vc), None
         else:
             controls = v.T.reshape(k_samples, horizon, action_dim)
             controls = constrain(jnp.clip(controls, low, high))
-            base, trajs = base_rollout(env_state, controls)
+            base, trajs = rollout_batch(env, env_state, controls, cfg.log)
         if gamma != 0.0:
             # γ·U_origᵀ Σ⁻¹ (V_k − U_orig) with the *current* sampling Σ
             # (ref :249, :272; Σ_inv = invcov of this iteration's P).
             # With V − U_orig = d + L·z (d = U_cur − U_orig, e = L·z) and
             # y₀ = L⁻¹U_orig, the term is γ·(y₁ᵀy₀ + zᵀy₀), y₁ = L⁻¹d —
-            # two forward substitutions (Pallas kernel on TPU) instead of
-            # XLA's full cho_solve, and the per-sample part is one matvec.
-            ys = forward_solve(chol, jnp.stack([u_orig, u_cur - u_orig]))
+            # two forward substitutions instead of a full cho_solve, and
+            # the per-sample part is one matvec.
+            ys = jax.scipy.linalg.solve_triangular(
+                chol, jnp.stack([u_orig, u_cur - u_orig]).T, lower=True
+            ).T
             base = base + gamma * (jnp.dot(ys[1], ys[0]) + z_n.T @ ys[0])
         return base, trajs
 
@@ -377,10 +305,8 @@ def _make_gmppi_step(env, cfg, u0_flat, sigma0, sample_sharding):
         # Early stop EXITS the loop, like the reference's host-loop
         # `break` (mppi_mpopi_policies.jl:459-461): stop-capable
         # strategies run a lax.while_loop with a dynamic trip count, so
-        # iterations before convergence pay ZERO branch overhead (the r4
-        # scan+lax.cond form taxed every live iteration ~0.37 ms/step at
-        # K=8192 — VERDICT r4 item 3) and iterations after convergence
-        # never execute at all. Outputs are identical to the masked/cond
+        # live iterations carry no per-iteration branch and iterations
+        # after convergence never execute at all. Outputs are identical to the masked/cond
         # forms: the carry freezes at the stopping iteration, and the
         # RNG for the final weights (key_next) was split BEFORE the
         # loop, so key streams are unchanged. Non-stop-capable
@@ -446,7 +372,11 @@ def _make_mppi_step(env, cfg, u0_flat, sigma_as, sample_sharding):
             return jax.lax.with_sharding_constraint(x, sample_sharding)
         return x
 
-    base_rollout = _make_base_rollout(env, cfg, sample_sharding)
+    fused = (
+        _fused_rollout(env, sample_sharding, k_samples)
+        if _use_fused(env, cfg)
+        else None
+    )
 
     def policy_step(env_state: EnvState, pol_state: PolicyState, z=None):
         """z: optional (K, T, as) standard normals overriding the policy RNG
@@ -459,7 +389,11 @@ def _make_mppi_step(env, cfg, u0_flat, sigma_as, sample_sharding):
         e = z @ chol_as.T  # E[k,t] ~ N(0, Σ_as) (ref :154-156)
         u_mat = pol_state.U.reshape(horizon, action_dim)
         controls = constrain(jnp.clip(u_mat[None, :, :] + e, low, high))
-        base, trajs = base_rollout(env_state, controls)
+        if fused is not None:
+            ctrl_tak = jnp.transpose(controls, (1, 2, 0))
+            base, trajs = fused(env_state.x, ctrl_tak), None
+        else:
+            base, trajs = rollout_batch(env, env_state, controls, cfg.log)
         costs = base
         if gamma != 0.0:
             # γ·uₜᵀ Σ⁻¹ εₖₜ summed over t (ref :167, :204)

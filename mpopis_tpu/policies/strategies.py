@@ -7,8 +7,8 @@ the next carry and an early-stop flag. One scan-based driver
 of the reference's calculate_trajectory_costs methods
 (mppi_mpopi_policies.jl:303-893) without duplicating the loop nine times.
 
-All updates are MXU-shaped: weighted covariances are (cs,K)x(K,cs) matmuls,
-never per-sample loops.
+All updates are matmul-shaped: weighted covariances are (cs,K)x(K,cs)
+matmuls, never per-sample loops.
 """
 
 from __future__ import annotations
@@ -19,26 +19,15 @@ from typing import Any, Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-from mpopis_tpu.kernels.ais_update import (
-    cma_update_chol,
-    default_interpret,
-    fused_update_enabled,
-    masked_refit_chol,
-    weighted_refit_chol,
-)
-from mpopis_tpu.kernels.linalg import cholesky_lower
-from mpopis_tpu.ops.covariance import (
-    shrinkage_cov,
-    shrinkage_cov_masked,
-    weighted_mean_and_cov,
-)
+from mpopis_tpu.models.base import pytree_dataclass
+from mpopis_tpu.ops.covariance import shrinkage_cov_masked, weighted_mean_and_cov
 from mpopis_tpu.ops.sampling import multinomial_resample_counts
 from mpopis_tpu.ops.weights import information_theoretic_weights
 
 
-class AISCarry(struct.PyTreeNode):
+@pytree_dataclass
+class AISCarry:
     U: jax.Array  # (cs,) current AIS mean
     chol: jax.Array  # (cs,cs) lower factor of the current sampling cov
     E: jax.Array  # (cs,K) last iteration's samples
@@ -63,11 +52,10 @@ class Strategy:
 
     @property
     def can_stop(self) -> bool:
-        """True when update() can ever return stop=True. The driver only
-        emits the early-stop `lax.cond` around the iteration body when
-        this is set — the branch costs ~0.1 ms/iteration at the headline
-        shape, so strategies that never stop (and stop-capable ones with
-        elite_stop_tol <= 0) get the straight-line body for free."""
+        """True when update() can ever return stop=True. The driver runs
+        a `lax.while_loop` with a data-dependent trip count only when this
+        is set; strategies that never stop (and stop-capable ones with
+        elite_stop_tol <= 0) get a static `lax.scan`."""
         return False
 
     def update(self, carry: AISCarry, key, u_orig, it_index):
@@ -93,8 +81,7 @@ def _inv_sqrt_newton_schulz(sigma: jnp.ndarray, its: int = 20):
     """Coupled Newton-Schulz iteration for Σ^{-1/2}: Y→(Σ/s)^{1/2},
     Z→(Σ/s)^{-1/2} with s = tr(Σ) (spectrum of Σ/s in (0,1] for PSD Σ, the
     convergence region). Matmul-only — ~60 (cs,cs) matmuls replace the
-    sequential eigh, which dominated the CMA step on TPU (~0.64 ms at
-    cs=100). Returns (C, err) with err = max|ZY − I| for the caller's
+    sequential eigh. Returns (C, err) with err = max|ZY − I| for the caller's
     converged-check (quadratic convergence once close; very ill-
     conditioned or quirk-indefinite Σ won't converge — fall back)."""
     n = sigma.shape[0]
@@ -148,16 +135,8 @@ class MeanCovStrategy(Strategy):
 
     def update(self, carry, key, u_orig, it_index):
         ws = information_theoretic_weights(carry.costs, self.inner_lam)
-        if fused_update_enabled(self.dtype):
-            mu = carry.E @ ws
-            chol = weighted_refit_chol(
-                carry.E, ws, mu, corrected=False,
-                jitter=float(self.cfg.cov_jitter),
-                interpret=default_interpret(),
-            )
-        else:
-            mu, sigma = weighted_mean_and_cov(carry.E, ws)
-            chol = cholesky_lower(_jittered(sigma, self.cfg.cov_jitter))
+        mu, sigma = weighted_mean_and_cov(carry.E, ws)
+        chol = jnp.linalg.cholesky(_jittered(sigma, self.cfg.cov_jitter))
         return carry.replace(U=carry.U + mu, chol=chol), jnp.asarray(False)
 
 
@@ -172,21 +151,14 @@ class PMCStrategy(Strategy):
         ws = information_theoretic_weights(carry.costs, self.inner_lam)
         # moments of the resampled multiset via draw counts: identical set
         # statistics to gathering E[:, resample_indices] (same uniforms,
-        # same bucketing), but a fused compare-reduce + two MXU matmuls —
-        # searchsorted + gather/scatter dominated the PMC iteration on TPU
+        # same bucketing), but a fused compare-reduce + two matmuls in
+        # place of searchsorted + gather/scatter
         k = self.num_samples
         counts = multinomial_resample_counts(key, ws, k)
         mu = carry.E @ (counts / k)
-        if fused_update_enabled(self.dtype):
-            chol = weighted_refit_chol(
-                carry.E, counts / k, mu, corrected=True,
-                jitter=float(self.cfg.cov_jitter),
-                interpret=default_interpret(),
-            )
-        else:
-            xc = carry.E - mu[:, None]
-            sigma = (xc * counts[None, :]) @ xc.T / (k - 1)
-            chol = cholesky_lower(_jittered(sigma, self.cfg.cov_jitter))
+        xc = carry.E - mu[:, None]
+        sigma = (xc * counts[None, :]) @ xc.T / (k - 1)
+        chol = jnp.linalg.cholesky(_jittered(sigma, self.cfg.cov_jitter))
         return carry.replace(U=carry.U + mu, chol=chol), jnp.asarray(False)
 
 
@@ -205,9 +177,8 @@ class CrossEntropyStrategy(Strategy):
         # Elite selection WITHOUT top_k/gather: a value sort gives the
         # sorted elite costs directly (the early-stop check, ref :455-461),
         # and the refit runs K-dense through a 0/1 mask (ties broken in
-        # index order — exactly the reference's stable sortperm). top_k
-        # carries an index payload and the (cs, m) gather behind it cost
-        # ~2x a plain sort on TPU; the masked refit is matmul-only.
+        # index order — exactly the reference's stable sortperm), so the
+        # refit is matmul-only with no (cs, m) gather.
         m = self.m_elite
         costs = carry.costs
         sorted_costs = jnp.sort(costs)
@@ -220,17 +191,8 @@ class CrossEntropyStrategy(Strategy):
         tie_rank = jnp.cumsum(tie.astype(jnp.int32))
         mask = (lt | (tie & (tie_rank <= n_take))).astype(costs.dtype)
         mu = (carry.E @ mask) / m
-        if fused_update_enabled(self.dtype):
-            # one Pallas program: masked shrinkage refit + jitter + Cholesky
-            # (round-2 measurement: this chain was 0.5 ms of serialized
-            # small-linalg latency per iteration — the two-round bottleneck)
-            chol = masked_refit_chol(
-                carry.E, mask, mu, m, self.cfg.sigma_est,
-                float(self.cfg.cov_jitter), interpret=default_interpret(),
-            )
-        else:
-            sigma = shrinkage_cov_masked(carry.E, mask, m, self.cfg.sigma_est)
-            chol = cholesky_lower(_jittered(sigma, self.cfg.cov_jitter))
+        sigma = shrinkage_cov_masked(carry.E, mask, m, self.cfg.sigma_est)
+        chol = jnp.linalg.cholesky(_jittered(sigma, self.cfg.cov_jitter))
         new = carry.replace(U=carry.U + mu, chol=chol)
         return new, stop
 
@@ -323,54 +285,6 @@ class CMAStrategy(Strategy):
         elite_costs = carry.costs[elite_idx]
         stop = jnp.max(jnp.abs(jnp.diff(elite_costs))) < cfg.elite_stop_tol
 
-        kk = self.num_samples
-        if (
-            fused_update_enabled(self.dtype)
-            and cfg.cma_rank_mu_quirk
-            and kk <= cs * self.m_elite  # svals index-decomposition bound
-        ):
-            # δw without the (cs, m_elite) elite-column gather: scatter the
-            # rank weights back to sample order, then one MXU matmul.
-            rank_w = jnp.where(
-                jnp.arange(kk) < self.m_elite, ws, jnp.zeros_like(ws)
-            )
-            wp = jnp.zeros((kk,), self.dtype).at[order].set(rank_w)
-            dw = carry.E @ wp
-            u_new = carry.U + sigma_s * dw
-            # svals = ds_flat[order] decomposed: a column-major linear index
-            # i into the (cs, m_elite) elite matrix is elite_e[i % cs,
-            # i // cs] = E[i % cs, order[i // cs]], valid because every
-            # i = order[j] <= K-1 < cs*m_elite (checked statically above).
-            it_f = it_index.astype(self.dtype)
-            svals = carry.E[order % cs, order[order // cs]] / sigma_s
-            consts_t = (
-                ("c1", float(self.c1)),
-                ("c_Sigma", float(self.c_Sigma)),
-                ("c_mu", float(self.c_mu)),
-                ("c_sigma", float(self.c_sigma)),
-                ("d_sigma", float(self.d_sigma)),
-                ("e_norm", float(self.e_norm)),
-                ("mu_eff", float(self.mu_eff)),
-            )
-            chol_new, Sigma_new, p_sigma, p_Sigma, sigma_new = cma_update_chol(
-                Sigma, dw, ex["p_sigma"], ex["p_Sigma"], svals, ws,
-                sigma_s, it_f, consts_t, jitter=float(cfg.cov_jitter),
-                guards=cfg.cma_stability_guards,
-                update_chol=cfg.opt_its > 1,
-                interpret=default_interpret(),
-            )
-            if cfg.opt_its <= 1:
-                chol_new = carry.chol
-            new = carry.replace(
-                U=u_new,
-                chol=chol_new,
-                extra=dict(
-                    Sigma=Sigma_new, sigma=sigma_new,
-                    p_sigma=p_sigma, p_Sigma=p_Sigma,
-                ),
-            )
-            return new, stop
-
         elite_e = carry.E[:, elite_idx]
         ds = elite_e / sigma_s  # δs (ref :572)
         dw = elite_e @ ws[: self.m_elite]  # δw (ref :573-576)
@@ -402,7 +316,7 @@ class CMAStrategy(Strategy):
         norm_ps = jnp.sqrt(jnp.sum(p_sigma**2))
         # the step-size exponent and σ are unbounded in the reference
         # (:580-582); in f32 a degenerate Σ drives exp() to Inf and the
-        # resulting NaN covariance crashes the TPU's eigh. The guards never
+        # resulting NaN covariance breaks eigh. The guards never
         # bind in the stable regime; cfg.cma_stability_guards=False restores
         # raw reference semantics.
         step_exp = self.c_sigma / self.d_sigma * (norm_ps / self.e_norm - 1.0)
@@ -458,7 +372,7 @@ class CMAStrategy(Strategy):
         Sigma_new = jnp.triu(Sigma_new) + jnp.triu(Sigma_new, 1).T  # symmetry
 
         if cfg.opt_its > 1:
-            chol_new = sigma_new * cholesky_lower(
+            chol_new = sigma_new * jnp.linalg.cholesky(
                 _jittered(Sigma_new, cfg.cov_jitter)
             )
         else:
@@ -504,7 +418,7 @@ class NESStrategy(Strategy):
         a_new = a_mat - (cfg.nes_step_factor / k) * grad_a / k  # double /K, ref :884
         sigma_new = a_new.T @ a_new
         u_new = carry.U - (cfg.nes_step_factor / k) * g_mu
-        chol_new = cholesky_lower(_jittered(sigma_new, cfg.cov_jitter))
+        chol_new = jnp.linalg.cholesky(_jittered(sigma_new, cfg.cov_jitter))
         new = carry.replace(U=u_new, chol=chol_new, extra=dict(A=a_new))
         return new, stop
 

@@ -7,14 +7,11 @@ tens of minutes on them (measured: 35 min for one Ant constrained-qacc at
 the default level). Dropping `xla_backend_optimization_level` skips the
 expensive LLVM passes only — HLO simplification and the numerics are
 unchanged, the generated code is just less micro-optimized. The CPU test
-suite uses this for every spatial jit; TPU entry points do NOT (the TPU
-backend ignores the flag; Mosaic kernels have their own path).
+suite uses this for every spatial jit; GPU entry points do not.
 
 Nesting: JAX rejects `compiler_options` on a jit that is traced inside an
-outer jit ("compiler options can only be passed to top-level jit calls"),
-which crashed `dryrun_multichip` in round 3 (VERDICT r3 item 1 —
-__graft_entry__ jits an MPC step whose fused interpret-mode rollout went
-through fast_jit). The wrapper therefore checks its arguments at call
+outer jit ("compiler options can only be passed to top-level jit calls").
+The wrapper therefore checks its arguments at call
 time: tracers mean we are inside an outer trace, where the inner jit is
 inlined anyway and the backend options of the OUTER jit govern — so the
 call routes to a plain nested jit with identical semantics.

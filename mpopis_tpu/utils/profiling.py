@@ -2,7 +2,7 @@
 
 The reference has no profiling beyond coarse per-trial wall-clock
 (car_example.jl:192,284-285). Here: per-phase wall timers around jitted
-calls plus a jax.profiler trace helper for TPU timeline capture
+calls plus a jax.profiler trace helper for device timeline capture
 (SURVEY.md §5 "New build" item).
 """
 
@@ -54,7 +54,7 @@ class PhaseTimer:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/mpopis_trace"):
+def trace(log_dir: str = "logs/trace"):
     """Capture a jax.profiler trace (view with TensorBoard / xprof)."""
     jax.profiler.start_trace(log_dir)
     try:

@@ -1,11 +1,9 @@
 """Single-core host-engine throughput for the MuJoCo tasks.
 
 Measures raw batched env-steps/s (one env-step = one frame-skipped
-control step, same unit as bench.py's `*_kernel_env_steps_per_s`) of the
-C++ envpool_lite engine, for the device-vs-host comparison table
-(VERDICT r3 item 6: publish the spatial-family end-to-end story vs the
-host baseline). This box has ONE core, so these are 1-core numbers — the
-reference's envpool scales them by ~n_cores.
+control step) of the C++ envpool_lite engine, for the device-vs-host
+comparison. These are 1-core numbers — the reference's envpool scales them
+by ~n_cores.
 
 Usage: python scripts/bench_host_engine.py [task ...]
 """

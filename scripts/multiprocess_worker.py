@@ -1,8 +1,8 @@
 """Worker for the multi-process (multi-host analog) validation.
 
 Each process owns a slice of a global device mesh (forced CPU devices
-stand in for per-host TPU chips; the coordinator wire-up is exactly
-jax.distributed, the same path a v5e/v5p multi-host slice uses over DCN).
+stand in for each host's accelerators; the coordinator wire-up is exactly
+jax.distributed, the same path a multi-host deployment uses).
 The sharded CEMPPI policy step runs under jit over the GLOBAL mesh; every
 input is process-replicated, the K sample axis is sharded across all
 processes' devices, and the resulting action must be identical on every

@@ -1,10 +1,9 @@
 """fast_jit (utils/fastjit.py) — nesting regression.
 
-Round 3's `dryrun_multichip` crashed at trace time because fast_jit
-passed `compiler_options` to a jit nested inside an outer `jax.jit`
-(JAX only accepts compiler options on top-level jits; VERDICT r3
-item 1). fast_jit now routes tracer calls to a plain nested jit; these
-tests pin both legs and the exact failure shape.
+fast_jit must not pass `compiler_options` to a jit nested inside an
+outer `jax.jit` (JAX only accepts compiler options on top-level jits);
+it routes tracer calls to a plain nested jit. These tests pin both legs
+and the exact failure shape.
 """
 
 import jax
@@ -40,7 +39,7 @@ def test_fast_jit_inside_outer_jit():
 
 
 def test_fast_jit_static_argnames_inside_outer_jit():
-    """With static_argnames (the spatial kernel's signature shape)."""
+    """With static_argnames."""
 
     def h(x, n):
         return x * n
@@ -52,34 +51,3 @@ def test_fast_jit_static_argnames_inside_outer_jit():
         return g(x, n=4)
 
     np.testing.assert_allclose(np.asarray(outer(jnp.ones(3))), 4.0)
-
-
-def test_spatial_interpret_kernel_inside_outer_jit():
-    """The exact dryrun pass-4 shape (__graft_entry__): the interpret-mode
-    spatial fused rollout traced inside an outer jax.jit. Tiny shapes —
-    this pins trace-time compatibility, not physics."""
-    from mpopis_tpu.models import PusherDeviceEnv
-
-    env = PusherDeviceEnv(
-        dtype=jnp.float32, fused_interpret=True, solver_outer=1, solver_cg=2
-    )
-    s0 = env.reset()
-    rng = np.random.default_rng(0)
-    ctrl = jnp.asarray(
-        rng.uniform(-0.5, 0.5, (2, env.action_dim, 8)), dtype=jnp.float32
-    )
-
-    @jax.jit
-    def outer(x, c):
-        from mpopis_tpu.models.base import make_state
-
-        return env.fused_rollout_costs_tak(make_state(x), c)
-
-    costs = outer(s0.x, ctrl)
-    assert costs.shape == (8,)
-    assert bool(jnp.all(jnp.isfinite(costs)))
-    # and it must agree with the same kernel called at top level
-    ref = env.fused_rollout_costs_tak(s0, ctrl)
-    np.testing.assert_allclose(
-        np.asarray(costs), np.asarray(ref), rtol=1e-6, atol=1e-6
-    )

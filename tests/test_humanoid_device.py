@@ -234,8 +234,7 @@ def test_policy_keeps_torso_up():
     vmapped rollout and the scalar substep of a 242-row model into one
     XLA:CPU module makes LLVM blow up (segfault at any K/H — probed on
     r4 and r5 code alike; the split modules each compile in minutes).
-    TPU compiles of the fused form are fine. Marked slow: the two CPU
-    compiles take ~10 min cold on the 1-core box."""
+    Marked slow: the two CPU compiles take ~10 min cold on one core."""
     from mpopis_tpu.policies import PolicyConfig, make_policy
 
     env = HumanoidDeviceEnv(dtype=jnp.float64, solver_outer=3, solver_cg=6)

@@ -1,6 +1,6 @@
 """Multi-host-analog validation: TWO real processes form a global 8-device
 mesh via jax.distributed (gloo coordinator — the same wire-up a multi-host
-TPU slice uses over DCN), run the K-sharded CEMPPI policy step under jit,
+deployment uses), run the K-sharded CEMPPI policy step under jit,
 and must produce identical actions on both processes AND match the
 single-process run of the same seed/config."""
 

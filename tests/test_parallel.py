@@ -117,10 +117,11 @@ def test_sharded_policy_step_equals_single_device():
 
 
 def test_sharded_fused_kernel_matches_unsharded():
-    """With sample sharding active, the fused Pallas rollout runs per-shard
+    """With sample sharding active, the car rollout kernel runs per-shard
     inside shard_map (GSPMD cannot partition a pallas_call); its policy
-    step must match the unsharded fused step and the vmap-path step.
-    Interpret mode stands in for the TPU kernel on the CPU topology."""
+    step must match the unsharded kernel step and the vmap-path step.
+    The Pallas interpreter stands in for the GPU kernel on the CPU
+    topology."""
     mesh = _mesh()
     env = CarRacingEnv(dtype=jnp.float32, fused_interpret=True)
     assert env.supports_fused_rollout
@@ -149,9 +150,9 @@ def test_sharded_fused_kernel_matches_unsharded():
 
 
 def test_sharded_fused_mppi_and_uneven_fallback():
-    """The classic-MPPI (K,T,as) fused layout also rides shard_map; a K
-    that doesn't divide over the mesh falls back to the GSPMD vmap path
-    with a warning instead of failing at trace time."""
+    """Classic MPPI's (K,T,as) controls also reach the kernel under
+    shard_map; a K that doesn't divide over the mesh takes the GSPMD vmap
+    path with a warning instead of failing at trace time."""
     import warnings
 
     mesh = _mesh()
@@ -252,43 +253,38 @@ def test_gspmd_emits_psum_of_outer_products():
 
 
 def test_sharded_contact_kernel_matches_unsharded():
-    """The flagship MuJoCo contact kernel (planar_step: contact QP inside
-    the Pallas program) must also ride shard_map (VERDICT r2 item 4: round
-    2 only certified the CAR kernel multi-chip). Two tiers:
+    """A contact task (HalfCheetah: generic vmap rollout with the contact
+    QP in every substep) must run sample-sharded too. Two tiers:
 
-    1. The shard_map'd kernel itself, on identical clamped controls, is
-       pinned TIGHT against the unsharded kernel — per-lane math is
+    1. The rollout under shard_map, on identical clamped controls, is
+       pinned TIGHT against the unsharded rollout — per-sample math is
        position-independent, so sharding the K axis must not change it.
     2. The full sample-sharded CEMPPI policy step matches the unsharded
-       fused step at looser tolerance: GSPMD partitions the (cs,K)
-       sampling matmul, whose f32 accumulation-order differences the
-       chaotic contact rollout amplifies (same class as the kernel-vs-
-       oracle f32 spread documented in BENCH.md round 2).
-
-    Interpret mode stands in for the TPU kernel on the CPU topology."""
+       step at looser tolerance: GSPMD partitions the (cs,K) sampling
+       matmul, whose f32 accumulation-order differences the chaotic
+       contact rollout amplifies."""
     import jax.sharding as shd
 
-    from mpopis_tpu.models import CheetahDeviceEnv, make_state
+    from mpopis_tpu.models import CheetahDeviceEnv, make_state, rollout_batch
 
     mesh = _mesh()
-    env = CheetahDeviceEnv(
-        dtype=jnp.float32, fused_interpret=True, solver_outer=1, solver_cg=3
-    )
-    assert env.supports_fused_rollout
+    env = CheetahDeviceEnv(dtype=jnp.float32, solver_outer=1, solver_cg=3)
+    assert not env.supports_fused_rollout
     s = env.reset()
 
-    # tier 1: the kernel under shard_map, same controls
+    # tier 1: the vmap rollout under shard_map, same controls
     k, t = 16, 2
     rng = np.random.default_rng(4)
     ctrl = jnp.asarray(
-        rng.uniform(-1.0, 1.0, (t, env.action_dim, k)), dtype=jnp.float32
+        rng.uniform(-1.0, 1.0, (k, t, env.action_dim)), dtype=jnp.float32
     )
-    ref = env.fused_rollout_costs_tak(s, ctrl)
+    ref, _ = rollout_batch(env, s, ctrl)
     sharded = jax.shard_map(
-        lambda x, c: env.fused_rollout_costs_tak(make_state(x), c),
+        lambda x, c: rollout_batch(env, make_state(x), c)[0],
         mesh=mesh,
-        in_specs=(shd.PartitionSpec(), shd.PartitionSpec(None, None, SAMPLE_AXIS)),
+        in_specs=(shd.PartitionSpec(), shd.PartitionSpec(SAMPLE_AXIS)),
         out_specs=shd.PartitionSpec(SAMPLE_AXIS),
+        # the contact solver's warm-start carry starts replicated
         check_vma=False,
     )(s.x, ctrl)
     np.testing.assert_allclose(
@@ -301,11 +297,11 @@ def test_sharded_contact_kernel_matches_unsharded():
         sigma_est="mle",
     )
     cov = [0.25] * env.action_dim
-    p_fused = make_policy(env, cfg, cov_mat=cov)
+    p_plain = make_policy(env, cfg, cov_mat=cov)
     p_shard = make_policy(
         env, cfg, cov_mat=cov, sample_sharding=sample_sharding(mesh, ndim=3)
     )
-    a_f, ps_f, i_f = p_fused.step(s, p_fused.init_state(11))
+    a_f, ps_f, i_f = p_plain.step(s, p_plain.init_state(11))
     a_s, ps_s, i_s = p_shard.step(s, p_shard.init_state(11))
     np.testing.assert_allclose(
         np.asarray(a_s), np.asarray(a_f), rtol=1e-2, atol=1e-4

@@ -3,8 +3,8 @@ reference's AIS update loops, driven with the SAME injected standard
 normals as the compiled driver (the `z=` hook, driver.py:280/363), and
 compared per-configuration.
 
-This is the implementation-independent semantic check VERDICT round 1
-asked for: unlike the self-goldens (which regress the code against
+This is the implementation-independent semantic check: unlike the
+self-goldens (which regress the code against
 itself), every formula here is transcribed directly from
 mppi_mpopi_policies.jl / utils.jl — the reference's loop structure,
 moment conventions, jitters, clamps, and quirks — in plain NumPy with

@@ -1,24 +1,17 @@
-"""Fused planar-contact rollout kernel vs the vmap oracle, plus the
-analytic mass/bias vs the energy-AD route."""
+"""Planar-contact steppers: the analytic mass/bias against the energy-AD
+route."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
-from mpopis_tpu.models import (
-    CheetahDeviceEnv,
-    HopperDeviceEnv,
-    Walker2dDeviceEnv,
-)
 from mpopis_tpu.models import cheetah_device, hopper_device, walker2d_device
 from mpopis_tpu.models.planar_contact import (
     bias_analytic,
     build_ad_dynamics,
     mass_entries_analytic,
 )
-from mpopis_tpu.models.rollout import rollout_batch
 
 
 @pytest.mark.parametrize(
@@ -26,9 +19,9 @@ from mpopis_tpu.models.rollout import rollout_batch
     ids=["cheetah", "hopper", "walker2d"],
 )
 def test_analytic_mass_bias_match_ad(mod):
-    """The analytic mass matrix / Coriolis+gravity bias (the forms both
-    the XLA stepper and the Pallas kernel use) equal the independent
-    energy-AD route (jacfwd/jvp of the kinematics) to ~1e-13."""
+    """The analytic mass matrix / Coriolis+gravity bias (the forms the
+    stepper uses) equal the independent energy-AD route (jacfwd/jvp of the
+    kinematics) to ~1e-13."""
     model = mod.MODEL
     n = model.n_dof
     _, me_ad, bias_ad = build_ad_dynamics(model)
@@ -50,73 +43,3 @@ def test_analytic_mass_bias_match_ad(mod):
             [float(x) for x in b_an], [float(x) for x in b_ad],
             rtol=1e-11, atol=1e-12,
         )
-
-
-@pytest.mark.parametrize(
-    "cls", [CheetahDeviceEnv, HopperDeviceEnv, Walker2dDeviceEnv],
-    ids=["cheetah", "hopper", "walker2d"],
-)
-@pytest.mark.slow
-def test_fused_rollout_matches_vmap_oracle(cls):
-    """Interpret-mode kernel == rollout_batch over env.step_reward (f32)."""
-    env = cls(dtype=jnp.float32, fused_interpret=True,
-              solver_outer=2, solver_cg=6)
-    assert env.supports_fused_rollout
-    k, t = 6, 3
-    rng = np.random.default_rng(5)
-    controls = jnp.asarray(
-        rng.uniform(-1.0, 1.0, (k, t, env.action_dim)), dtype=jnp.float32
-    )
-    s0 = env.reset()
-    oracle, _ = rollout_batch(env, s0, controls, log_states=False)
-    got = env.fused_rollout_costs(s0, controls)
-    assert got.shape == (k,)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(oracle), rtol=2e-4, atol=2e-4
-    )
-
-
-@pytest.mark.slow
-def test_fused_rollout_nonzero_contacts():
-    """A dropping cheetah hits the floor within the horizon: the kernel's
-    contact path must produce finite, oracle-matching costs (not just the
-    flight phase)."""
-    env = CheetahDeviceEnv(dtype=jnp.float32, fused_interpret=True,
-                           solver_outer=2, solver_cg=6)
-    k, t = 5, 4
-    rng = np.random.default_rng(7)
-    controls = jnp.asarray(
-        rng.uniform(-1.0, 1.0, (k, t, 6)), dtype=jnp.float32
-    )
-    # start slightly dropped so contacts fire immediately
-    s0 = env.reset()
-    x = s0.x.at[1].set(-0.35)
-    s0 = s0.replace(x=x)
-    oracle, _ = rollout_batch(env, s0, controls, log_states=False)
-    got = env.fused_rollout_costs(s0, controls)
-    assert bool(jnp.all(jnp.isfinite(got)))
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(oracle), rtol=2e-4, atol=2e-3
-    )
-
-
-@pytest.mark.slow
-def test_swimmer_fused_rollout_matches_vmap_oracle():
-    """The generic kernel builder also covers the swimmer (ANALYTIC
-    chain dynamics — swimmer_device._rk4_analytic — traced inside the
-    kernel; the AD route stalls Mosaic): interpret-mode == vmap oracle."""
-    from mpopis_tpu.models import SwimmerDeviceEnv
-
-    env = SwimmerDeviceEnv(dtype=jnp.float32, fused_interpret=True)
-    assert env.supports_fused_rollout
-    k, t = 6, 3
-    rng = np.random.default_rng(9)
-    controls = jnp.asarray(
-        rng.uniform(-1.0, 1.0, (k, t, 2)), dtype=jnp.float32
-    )
-    s0 = env.reset()
-    oracle, _ = rollout_batch(env, s0, controls, log_states=False)
-    got = env.fused_rollout_costs(s0, controls)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(oracle), rtol=2e-4, atol=2e-5
-    )

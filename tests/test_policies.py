@@ -144,7 +144,7 @@ def test_control_cost_zero_when_alpha_one():
 def test_cma_update_survives_degenerate_sigma_f32():
     """Regression: the reference's scalar rank-μ quirk can leave Σ
     indefinite; in f32 the unguarded Σ^{-1/2} / step-size chain overflowed
-    to NaN (and a NaN covariance crashes TPU eigh). The relative eigenvalue
+    to NaN (and a NaN covariance breaks eigh). The relative eigenvalue
     floor and the step-size clips must keep every output finite."""
     import jax
 

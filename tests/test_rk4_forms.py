@@ -2,23 +2,20 @@
 same arithmetic (models/spatial_contact.build_spatial_stepper):
 
 - "scan":   (4,)-array stage constants — cheapest XLA CPU compile, the
-            env.step / vmap-oracle form; doesn't lower through Mosaic.
-- "unroll": 4 stages inline, static float coefficients — Mosaic-safe
-            but keeps 4 live qacc bodies (~36 MB vregs on humanoid).
+            env.step / vmap-path form.
+- "unroll": 4 stages inline, static float coefficients — keeps 4 live
+            qacc bodies.
 - "loop":   lax.fori_loop with scalar-select coefficients and
-            data-layout-anchored carries — Mosaic-safe AND a 1x qacc
-            live window; the fused-kernel default (rk4_loop=True).
+            data-anchored carries — no array constants and a 1x qacc
+            live window, the form for a kernel body.
 
 The loop form's anchor adds (x + 0·acts) must be EXACT, so "loop" must
 agree BITWISE with "scan" (the env.step / vmap-oracle form) on CPU f64
-given identical inputs — this pins the kernels' default RK4 path to the
-oracle-path arithmetic without a (slow) interpret-mode Pallas compile.
-"unroll" is only pinned to ~1 ulp: its inlined stages give XLA CPU
-different fusion clusters and FMA-contraction choices (measured max rel
-diff 3.1e-15 on the ant model), which is compiler freedom, not an
-arithmetic change. TPU A/B (scripts/ab_rk4_loop.py, round 4): loop ==
-unroll bit-exact on-chip for Ant, 3.5x faster ant compile (19.1s vs
-66.7s), ~6% faster steady-state.
+given identical inputs — this pins the loop form to the vmap-path
+arithmetic. "unroll" is only pinned to ~1 ulp: its inlined stages give
+XLA CPU different fusion clusters and FMA-contraction choices (measured
+max rel diff 3.1e-15 on the ant model, CPU f64), which is compiler
+freedom, not an arithmetic change.
 """
 
 import numpy as np
@@ -59,7 +56,7 @@ def test_rk4_loop_matches_scan_and_unroll_bitwise():
     # unroll: identical arithmetic, but XLA CPU contracts different FMAs
     # in the inlined emission — measured diff 3.1e-15 (~14 ulp); rtol is
     # a few x that so a genuine arithmetic regression in the unroll path
-    # cannot hide under a slack tolerance (ADVICE r4).
+    # cannot hide under a slack tolerance.
     for a, b in zip(outs["scan"], outs["unroll"]):
         np.testing.assert_allclose(
             a, b, rtol=1e-14, atol=1e-18,
